@@ -27,7 +27,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 DEFAULT_PATHS = [
-    REPO / "spec_viterbi_tpu",
+    REPO / "spec_viterbi",
     REPO / "scripts",
     REPO / "tests",
     REPO / "bench.py",

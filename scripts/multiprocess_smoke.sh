@@ -2,18 +2,17 @@
 # Two-process jax.distributed smoke test on CPU devices: a real multi-host
 # process group (coordinator + worker), global meshes spanning both
 # processes, and EVERY parallel/ entry point the scheduler can route to
-# (VERDICT r4 #2), oracle-checked in both processes:
+# oracle-checked in both processes:
 #   - decode_batch_structured_dp (public API, global staging + allgather)
 #   - decode_batch_structured_tp (state-sharded halo TP)
-#   - decode_batch_dp_fused / decode_path_batch_dp_fused (flagship fused
-#     kernel shard_mapped across the process boundary, interpret mode —
-#     CPU devices can't run Mosaic; the distribution logic is what's
-#     under test)
+#   - decode_batch_dp_fused / decode_path_batch_dp_fused (the
+#     whole-sequence kernel shard_mapped across the process boundary, in
+#     the Pallas interpreter — the kernel is compiled only for GPUs; the
+#     distribution logic is what's under test)
 #   - StreamDP: ragged scores streaming + exact-path finalize
 #   - plan_route/execute_route on the process-spanning mesh (the "dp"
 #     route end-to-end)
-# The closest a single machine gets to the N-host story (SURVEY.md §2.9)
-# without a pod.
+# The closest a single machine gets to the N-host story (SURVEY.md §2.9).
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
@@ -28,8 +27,7 @@ import os
 import numpy as np
 import jax
 
-jax.config.update("jax_platforms", "cpu")
-from spec_viterbi_tpu.parallel import init_distributed, make_mesh, process_info
+from spec_viterbi.parallel import init_distributed, make_mesh, process_info
 
 assert init_distributed(
     coordinator_address=os.environ["SVT_COORD"],
@@ -40,22 +38,22 @@ info = process_info()
 assert info["process_count"] == 2 and info["global_devices"] == 8, info
 pid = info["process_id"]
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_hmm
-from spec_viterbi_tpu.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
-from spec_viterbi_tpu.ops.fused_pallas import FusedStructuredDecoder
-from spec_viterbi_tpu.ops.structured import StructuredOperator
-from spec_viterbi_tpu.parallel.sharded import (
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io.generators import generate_profile_hmm
+from spec_viterbi.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
+from spec_viterbi.ops.fused_pallas import FusedStructuredDecoder
+from spec_viterbi.ops.structured import StructuredOperator
+from spec_viterbi.parallel.sharded import (
     StreamDP,
     decode_batch_dp_fused,
     decode_path_batch_dp_fused,
 )
-from spec_viterbi_tpu.parallel.structured_tp import (
+from spec_viterbi.parallel.structured_tp import (
     decode_batch_structured_dp,
     decode_batch_structured_tp,
 )
 
-hmm = read_hmm("/root/reference/chmm_files/100.chmm")
+hmm = generate_profile_hmm(100, seed=100)  # the seeded corpus's 100.chmm
 rng = np.random.default_rng(0)
 seqs = [rng.integers(0, hmm.emit_num, size=t).astype(np.int32) for t in (20, 33, 7)]
 want = [viterbi_scores_oracle(hmm, s) for s in seqs]
@@ -65,7 +63,7 @@ ns = hmm.states_num
 # whose Viterbi path provably walks distinct states: the corpus profile
 # HMMs decode to all-state-0 paths on arbitrary streams, which would let
 # a lane-permutation bug through the path checks
-from spec_viterbi_tpu.hmm import HMM
+from spec_viterbi.hmm import HMM
 
 
 def cyclic_hmm(n=100, e=4):
@@ -99,7 +97,7 @@ for g, w, s in zip(got, want, seqs):
     assert almost_equal_vec(g, w), f"structured TP @ {len(s)}"
 print(f"p{pid}: structured TP OK", flush=True)
 
-# ---- flagship fused kernel, DP-sharded across the process boundary ----
+# ---- the kernel, DP-sharded across the process boundary ----
 sop = StructuredOperator.from_hmm(hmm)
 fd = FusedStructuredDecoder(
     sop,
@@ -163,14 +161,14 @@ for i, ln in enumerate(lanes):
 print(f"p{pid}: StreamDP exact paths OK", flush=True)
 
 # ---- scheduler end-to-end on the process-spanning mesh ----
-from spec_viterbi_tpu.scheduler import Route, execute_route
+from spec_viterbi.scheduler import Route, execute_route
 
 route = Route("dp", "smoke", {"shards": 8})
-got = execute_route(hmm, seqs, route, mesh_dp)
+got = execute_route(hmm, seqs, route, mesh_dp, interpret=True)
 for g, w, s in zip(got, want, seqs):
     assert almost_equal_vec(np.asarray(g)[:ns], w), f"route dp @ {len(s)}"
 route_p = Route("dp", "smoke", {"shards": 8, "paths": True})
-got = execute_route(chmm, cseqs, route_p, mesh_dp)
+got = execute_route(chmm, cseqs, route_p, mesh_dp, interpret=True)
 for (g, path), (wsc, wpath) in zip(got, cwant):
     assert np.array_equal(path, wpath)
 print(f"p{pid}: scheduler dp route (scores+paths) OK", flush=True)

@@ -1,0 +1,20 @@
+"""Benchmark harness: median-of-N timing, `.dat` TSV outputs, dataset
+drivers (the reference's ``benchmark/`` layer, SURVEY.md §2.5)."""
+
+from spec_viterbi.bench.harness import (
+    TIMES_TO_RUN,
+    get_func_run_time_ms,
+    get_median,
+    get_sorted_run_times,
+    print_benchmarks_to_file_as_dat,
+    sum_dat_columns,
+)
+
+__all__ = [
+    "TIMES_TO_RUN",
+    "get_func_run_time_ms",
+    "get_median",
+    "get_sorted_run_times",
+    "print_benchmarks_to_file_as_dat",
+    "sum_dat_columns",
+]

@@ -1,61 +1,41 @@
-"""spec_viterbi_tpu — TPU-native Viterbi decoding via (min,+) semiring
-matrix products with HMM specialization.
+"""The package's former name, kept as an alias of :mod:`spec_viterbi`.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the reference
-CUDA/C++ suite Spec_Viterbi (see SURVEY.md): .chmm/.ess corpus I/O,
-non-specialized and specialized (level-L) decoding, cross-validating
-execution paths, a median-of-N benchmark harness with .dat outputs — plus
-TPU-first extensions: batched data-parallel decode, state-sharded (TP) and
-time-parallel (SP) decoding over device meshes, exact Viterbi backtrace, and
-a persistent operator cache.
+Importing it, or any of its submodules, gives the very module objects of
+``spec_viterbi`` (one class per type, whichever name imported it) and
+warns once. New code imports ``spec_viterbi``.
 """
 
-from spec_viterbi_tpu.hmm import (
-    HMM,
-    ZERO_PROB,
-    almost_equal,
-    almost_equal_vec,
-    to_modified_prob,
-)
-from spec_viterbi_tpu.io import hmmer_to_hmm, read_hmm, read_emit_seq
-from spec_viterbi_tpu.models import (
-    DeviceHMM,
-    SpecializedViterbi,
-    StructuredSpecializedViterbi,
-    ViterbiDecoder,
-    viterbi_path_oracle,
-    viterbi_scores_oracle,
-)
-from spec_viterbi_tpu.scheduler import (
-    Route,
-    Workload,
-    decode_auto,
-    execute_route,
-    plan_route,
-    stream_engine,
-)
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-__version__ = "0.1.0"
+import spec_viterbi
 
-__all__ = [
-    "HMM",
-    "ZERO_PROB",
-    "almost_equal",
-    "almost_equal_vec",
-    "to_modified_prob",
-    "read_hmm",
-    "read_emit_seq",
-    "hmmer_to_hmm",
-    "DeviceHMM",
-    "ViterbiDecoder",
-    "SpecializedViterbi",
-    "StructuredSpecializedViterbi",
-    "viterbi_scores_oracle",
-    "viterbi_path_oracle",
-    "Route",
-    "Workload",
-    "plan_route",
-    "execute_route",
-    "decode_auto",
-    "stream_engine",
-]
+_OLD = __name__
+_NEW = spec_viterbi.__name__
+
+
+class _AliasLoader(importlib.abc.Loader):
+    def create_module(self, spec):
+        return importlib.import_module(_NEW + spec.name[len(_OLD) :])
+
+    def exec_module(self, module):
+        pass
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(name, _AliasLoader())
+        return None
+
+
+warnings.warn(
+    f"{_OLD} is the former name of {_NEW}; import {_NEW} instead",
+    DeprecationWarning,
+    stacklevel=2,
+)
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_OLD] = spec_viterbi

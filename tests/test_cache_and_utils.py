@@ -6,11 +6,11 @@ import numpy as np
 
 from conftest import TEST_CHMMS, TEST_SEQS
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_emit_seq, read_hmm
-from spec_viterbi_tpu.models.specializer import SpecializedViterbi
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.utils import OperatorCache, StepTimer
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_emit_seq, read_hmm
+from spec_viterbi.models.specializer import SpecializedViterbi
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.utils import OperatorCache, StepTimer
 
 
 def test_operator_cache_roundtrip(tmp_path):
@@ -106,7 +106,7 @@ def test_step_timer_summary():
 
 def test_operator_cache_migration_and_tmp_sweep(tmp_path):
     """The FIRST STORE (not construction — read-only consumers must never
-    race concurrent processes out of their entries, ADVICE r3) reclaims
+    race concurrent processes out of their entries) reclaims
     unreachable old-format entries and stale tmp dirs, keeps
     current-format entries, fresh tmp dirs and non-entry names, and
     namespaces dense/struct kinds so their schemas can never collide."""

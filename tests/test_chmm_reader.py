@@ -7,8 +7,8 @@ the fixture is compared against hand-computed −log2 values.
 import numpy as np
 import pytest
 
-from spec_viterbi_tpu.hmm import almost_equal, to_modified_prob
-from spec_viterbi_tpu.io import read_hmm
+from spec_viterbi.hmm import almost_equal, to_modified_prob
+from spec_viterbi.io import read_hmm
 from tests.conftest import TEST_CHMMS
 
 
@@ -61,7 +61,7 @@ def test_chmm_missing_file_raises():
 
 
 def test_chmm_roundtrip(tmp_path):
-    from spec_viterbi_tpu.io import write_chmm
+    from spec_viterbi.io import write_chmm
 
     hmm = read_hmm(f"{TEST_CHMMS}/3_test_chmm.chmm")
     out = tmp_path / "rt.chmm"

@@ -13,9 +13,9 @@ import numpy as np
 
 from conftest import CHMM_DIR, TEST_CHMMS, TEST_SEQS
 
-from spec_viterbi_tpu import cli
-from spec_viterbi_tpu.io import read_emit_seq, read_hmm
-from spec_viterbi_tpu.models.oracle import (
+from spec_viterbi import cli
+from spec_viterbi.io import read_emit_seq, read_hmm
+from spec_viterbi.models.oracle import (
     viterbi_path_oracle,
     viterbi_scores_oracle,
 )
@@ -110,7 +110,7 @@ def test_cli_sum_dat_nan_aware(tmp_path, capsys):
         line.split("\t") for line in out.strip().splitlines()
     )
     assert float(cols["a"]) == 4.0
-    # NaN cells must not poison the aggregate (VERDICT r1 weak #7)
+    # NaN cells must not poison the aggregate
     assert float(cols["b"]) == 3.0
 
 
@@ -144,13 +144,13 @@ def test_cli_fasta_to_ess(tmp_path, capsys):
 
 
 def test_bench_ragged_interpret(tmp_path):
-    from spec_viterbi_tpu.bench.bench_ragged import (
+    from spec_viterbi.bench.bench_ragged import (
         HEADERS,
         benchmark_ragged,
     )
-    from spec_viterbi_tpu.io import write_ess
+    from spec_viterbi.io import write_ess
 
-    from spec_viterbi_tpu.utils.batching import bucket_plan
+    from spec_viterbi.utils.batching import bucket_plan
 
     rng = np.random.default_rng(2)
     ess = str(tmp_path / "rag.ess")
@@ -186,6 +186,7 @@ def test_cli_bench_writes_dat(tmp_path, capsys):
         [
             "bench",
             "--datasets", ess,
+            "--chmm-dir", CHMM_DIR,
             "--out-dir", str(tmp_path),
             "--times", "1",
             "--max-states", "110",

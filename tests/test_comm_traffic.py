@@ -1,4 +1,4 @@
-"""Regression tests for the TP communication bounds (VERDICT r1 #9).
+"""Regression tests for the TP communication bounds.
 
 The halo-exchange structured TP design's reason to exist is that per-step
 collective traffic is O(components)·B — independent of model size — while
@@ -12,12 +12,12 @@ import jax.numpy as jnp
 
 from conftest import CHMM_DIR
 
-from spec_viterbi_tpu.io import read_hmm
-from spec_viterbi_tpu.ops.structured import StructuredOperator
-from spec_viterbi_tpu.parallel import make_mesh
-from spec_viterbi_tpu.parallel.sharded import make_dp_tp_decode
-from spec_viterbi_tpu.parallel.structured_tp import make_structured_tp_decode
-from spec_viterbi_tpu.utils.comm import (
+from spec_viterbi.io import read_hmm
+from spec_viterbi.ops.structured import StructuredOperator
+from spec_viterbi.parallel import make_mesh
+from spec_viterbi.parallel.sharded import make_dp_tp_decode
+from spec_viterbi.parallel.structured_tp import make_structured_tp_decode
+from spec_viterbi.utils.comm import (
     collective_payload_bytes,
     total_collective_bytes,
 )
@@ -81,7 +81,7 @@ def test_halo_tp_traffic_bound_vs_dense_tp():
 
     # dense TP: the per-step all-gather materializes the [N, B] carry
     hmm = read_hmm(os.path.join(CHMM_DIR, model))
-    from spec_viterbi_tpu.models.decoder import DeviceHMM
+    from spec_viterbi.models.decoder import DeviceHMM
 
     dev = DeviceHMM.from_hmm(hmm)
     mesh = make_mesh(data=2, state=4)
@@ -98,42 +98,3 @@ def test_halo_tp_traffic_bound_vs_dense_tp():
     assert dense_total >= dev.padded * (B // 2) * 4  # N·B_local floats
     # the design claim: orders of magnitude less traffic
     assert halo_total * 20 < dense_total, (halo_total, dense_total)
-
-
-def test_fused_tp_traffic_per_chunk():
-    """Chunked-halo fused TP: collectives appear once per CHUNK (the scan
-    body), so amortized per-step bytes = (h_lo+h_hi)·B·4/chunk — strictly
-    below the per-step halo TP for the same band at chunk > 1, and the
-    only collective kind is the halo collective-permute."""
-    from test_fused_tp import banded_hmm
-    from spec_viterbi_tpu.parallel.fused_tp import FusedTPDecoder
-
-    hmm = banded_hmm(n=256, offsets=(1,), seed=3)
-    sop = StructuredOperator.from_hmm(hmm)
-    chunk, shards, b = 8, 4, 128
-    mesh = make_mesh(state=shards)
-    tp = FusedTPDecoder(
-        sop,
-        hmm.emission_matrix(pad_to=sop.n),
-        hmm.start_vector(pad_to=sop.n),
-        mesh,
-        chunk=chunk,
-        interpret=True,
-    )
-    args = (
-        tp._dv_pad,
-        tp._em_pad,
-        tp._pi_pad,
-        tp._em_split_pad,
-        jnp.zeros((3 * chunk + 1, b), jnp.int32),
-        jnp.full((b,), 3 * chunk + 1, jnp.int32),
-    )
-    hlo = tp._decode.lower(*args).compile().as_text()
-    payload = collective_payload_bytes(hlo)
-    assert set(payload) <= {"collective-permute"}, payload
-    per_chunk = payload.get("collective-permute", 0)
-    expect = (tp.h_lo + tp.h_hi) * b * 4
-    assert per_chunk == expect, (per_chunk, expect)
-    # amortized per step: one 8-row halo / 8 steps = 1 row·B·4 per step,
-    # vs per-step halo TP's 1-row ppermute + pmin every step
-    assert per_chunk / chunk <= 1 * b * 4

@@ -1,9 +1,9 @@
-"""End-to-end covid-19 workload (BASELINE.json config 5 shape, CPU-sized).
+"""End-to-end covid-19-shaped workload (CPU-sized).
 
 The real covid-19 dataset (16 SARS-CoV-2 protein sequences, lens 38–7,096)
 decoded against a production profile HMM with full backtrace, validated
 against the NumPy oracle. The largest sequences run on the 102-state model
-to keep the CPU oracle tractable; the TPU drive covers the big models.
+to keep the CPU oracle tractable; chip_smoke.py covers the big models.
 """
 
 import os
@@ -12,10 +12,10 @@ import numpy as np
 
 from conftest import CHMM_DIR, ESS_DIR
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_emit_seq, read_hmm
-from spec_viterbi_tpu.models.decoder import ViterbiDecoder
-from spec_viterbi_tpu.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_emit_seq, read_hmm
+from spec_viterbi.models.decoder import ViterbiDecoder
+from spec_viterbi.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
 
 
 def test_covid_full_dataset_scores_and_paths():

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from spec_viterbi_tpu.io import read_emit_seq, write_ess
+from spec_viterbi.io import read_emit_seq, write_ess
 from tests.conftest import TEST_SEQS
 
 

@@ -1,8 +1,10 @@
-"""Fused whole-sequence Pallas kernel, run in interpreter mode on CPU.
+"""Whole-sequence kernel, run in the Pallas interpreter on the CPU.
 
-The compiled kernel is exercised on the real TPU by bench.py and the verify
-drive; this suite checks the kernel's algebra (BIG-clamped emissions, inf
-thresholding, masking of finished lanes, residual handling) hardware-free.
+The compiled kernel is exercised on the GPU by ``chip_smoke.py`` and the
+``gpu``-marked tests; this suite checks the kernel's algebra (offset
+reads, dense rows and columns, residual patches, +inf handling, masking
+of finished lanes, the backpointer tie rule) against the XLA structured
+scan and the NumPy oracle, hardware-free.
 """
 
 import os
@@ -12,11 +14,12 @@ import pytest
 
 from conftest import CHMM_DIR, TEST_CHMMS
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_hmm
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.ops.fused_pallas import FusedStructuredDecoder, fused_eligible
-from spec_viterbi_tpu.ops.structured import StructuredOperator
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_hmm
+from spec_viterbi.models.decoder import ViterbiDecoder
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.ops.fused_pallas import FusedStructuredDecoder, fused_eligible
+from spec_viterbi.ops.structured import StructuredOperator
 
 
 def _fused_for(hmm):
@@ -41,8 +44,8 @@ def test_fused_matches_oracle_production_model():
 
 
 def test_fused_fixture_with_unreachable_state():
-    """Fixture 0 has an unreachable state: +inf must survive the BIG
-    round-trip (test_helper.h:18 expects {25.66, 24.49, inf})."""
+    """Fixture 0 has an unreachable state: it must stay +inf
+    (test_helper.h:18 expects {25.66, 24.49, inf})."""
     hmm = read_hmm(os.path.join(TEST_CHMMS, "0_test_chmm.chmm"))
     fd = _fused_for(hmm)
     seq = np.array([0, 1, 0], dtype=np.int32)
@@ -65,7 +68,7 @@ def test_fused_residual_entries():
 
 
 def test_fused_path_kernel_matches_oracle():
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     fd = _fused_for(hmm)
@@ -79,7 +82,7 @@ def test_fused_path_kernel_matches_oracle():
 
 
 def test_fused_path_kernel_ragged_and_residual():
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     hmm = read_hmm(os.path.join(TEST_CHMMS, "3_test_chmm.chmm"))
     fd = _fused_for(hmm)
@@ -95,7 +98,7 @@ def test_fused_path_kernel_ragged_and_residual():
 
 def _chain_hmm(rng, states, em_probs):
     """Profile-shaped HMM (chain + dense fan-out row) -> fused-eligible."""
-    from spec_viterbi_tpu.hmm import HMM, to_modified_prob_np
+    from spec_viterbi.hmm import HMM, to_modified_prob_np
 
     rows = [0] * states + list(range(1, states - 1))
     cols = list(range(states)) + list(range(2, states))
@@ -113,11 +116,11 @@ def _chain_hmm(rng, states, em_probs):
 
 
 def test_fused_path_parity_through_dead_symbol():
-    """A symbol emitted by no state drives every carry to the semantic
-    zero; the BIG-clamped kernel must still emit the oracle's pointers
-    (all-inf rows backtrace to state 0)."""
-    from spec_viterbi_tpu.hmm import HMM, to_modified_prob_np
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    """A symbol emitted by no state drives every carry to +inf; the
+    kernel must still emit the oracle's pointers (all-inf rows backtrace
+    to state 0)."""
+    from spec_viterbi.hmm import HMM, to_modified_prob_np
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     rng = np.random.default_rng(2)
     states, emit = 40, 4
@@ -132,26 +135,23 @@ def test_fused_path_parity_through_dead_symbol():
     assert np.array_equal(path, opath), (path, opath)
 
 
-def test_fused_large_alphabet_e_pad():
-    """Alphabets beyond 32 symbols grow the one-hot pad instead of crashing."""
-    from spec_viterbi_tpu.hmm import HMM, to_modified_prob_np
-    from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
+def test_fused_large_alphabet():
+    """Alphabets beyond 32 symbols: the emission gather indexes any row."""
+    from spec_viterbi.models.oracle import viterbi_scores_oracle
 
     rng = np.random.default_rng(6)
     states, emit = 40, 40
     hmm = _chain_hmm(rng, states, rng.uniform(0.1, 1.0, size=(emit, states)))
     fd = _fused_for(hmm)
-    assert fd.e_pad == 64
     seq = rng.integers(0, emit, size=17).astype(np.int32)
     got = fd.decode_batch([seq])[0]
     assert almost_equal_vec(got, viterbi_scores_oracle(hmm, seq))
 
 
 def test_fused_negative_diag_offset():
-    """A subdiagonal (i → i−1 chain) must decode through the fused kernel:
-    pltpu.roll only accepts non-negative shifts, so negative offsets roll by
-    ``d % n`` (wrap rows carry +inf in the diagonal values)."""
-    from spec_viterbi_tpu.hmm import HMM, to_modified_prob_np
+    """A subdiagonal (i → i−1 chain) is an offset read past the top of the
+    carry; out-of-range reads must contribute nothing."""
+    from spec_viterbi.hmm import HMM, to_modified_prob_np
 
     rng = np.random.default_rng(11)
     states = 40
@@ -172,7 +172,7 @@ def test_fused_negative_diag_offset():
     sop = StructuredOperator.from_hmm(hmm)
     assert any(d < 0 for d in sop.diag_offsets), sop.diag_offsets
     fd = _fused_for(hmm)
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     for t in (2, 17, 33):
         seq = rng.integers(0, hmm.emit_num, size=t).astype(np.int32)
@@ -205,130 +205,190 @@ def test_fused_uniform_length_one_batch():
         assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s))
 
 
-def test_frame_shifted_kernel_bit_identical_to_base():
-    """The frame-shifted unmasked kernel (_make_fs_kernel) must emit the
-    EXACT same scores as the base kernel — same candidate multisets, f32
-    min is exact — across unroll depths, tails, and multi-block batches."""
+def _xla_scores(hmm, seqs):
+    return ViterbiDecoder(hmm, use_pallas=False).decode_batch(seqs, bucketed=False)
+
+
+@pytest.mark.parametrize("b,t", [(1, 2), (3, 6), (5, 23), (9, 40), (16, 9)])
+def test_kernel_scores_bit_equal_to_xla_scan(b, t):
+    """Same float32 adds, exact mins: the kernel's scores are BIT-equal to
+    the XLA structured scan, not just within the ±1.0 contract."""
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     fd = _fused_for(hmm)
-    assert fd._fs_ok
-    rng = np.random.default_rng(7)
-    # (lanes, length): tails of every residue at unroll 2 and 4, plus a
-    # multi-block batch that takes the deeper unroll
-    # (t=1 stays masked: the t_min padding step freezes, see prepare)
-    # 256 and 512 lanes take the WIDE lane blocks (lb256/lb512 — the
-    # stall-filling configuration, _fs_plan_for)
-    for b, t in ((2, 2), (3, 6), (5, 23), (130, 9), (1, 24), (256, 10), (512, 7)):
-        seqs = [
-            rng.integers(0, hmm.emit_num, size=t).astype(np.int32)
-            for _ in range(b)
-        ]
-        st, ln, masked = fd.prepare(seqs)
-        assert not masked  # uniform lengths compile the mask out
-        got = np.asarray(fd._jit_run(st, ln, masked=False, b_real=b))
-        # base kernel, forced via the masked path (mask never fires here)
-        base = np.asarray(fd._jit_run(st, ln, masked=True, b_real=b))
-        np.testing.assert_array_equal(got, base)
-        for g, s in zip(got, seqs):
-            assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s)), (b, t)
+    rng = np.random.default_rng(b * 100 + t)
+    seqs = [rng.integers(0, hmm.emit_num, size=t).astype(np.int32) for _ in range(b)]
+    got = fd.decode_batch(seqs, bucketed=False)
+    for g, w in zip(got, _xla_scores(hmm, seqs)):
+        np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("unroll", [4, 8])
-def test_frame_shifted_kernel_deep_unroll_chain(unroll):
-    """Deep-unroll main body + tail on a multi-block batch: the realign
-    roll, the scratch-carried running min, and the main→tail frame
-    handoff (unroll=8 is the adaptive FS depth at full occupancy)."""
+@pytest.mark.parametrize("lens", [(2, 31), (17, 17, 17), (40, 3, 25, 9)])
+def test_kernel_paths_equal_to_xla_path_scan(lens):
+    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
+    fd = _fused_for(hmm)
+    rng = np.random.default_rng(sum(lens))
+    seqs = [rng.integers(0, hmm.emit_num, size=t).astype(np.int32) for t in lens]
+    got = fd.decode_path_batch(seqs)
+    want = ViterbiDecoder(hmm, use_pallas=False).decode_path_batch(seqs)
+    for (gs, gp), (ws, wp) in zip(got, want):
+        np.testing.assert_array_equal(gs, ws)
+        np.testing.assert_array_equal(gp, wp)
+
+
+def _kernel_at(hmm, sop, seqs, tile):
+    """Scores [B, Np] and paths [B, T] from the kernel called directly at
+    one state tile."""
+    import jax.numpy as jnp
+
+    from spec_viterbi.ops.fused_pallas import backtrace, kernel_arrays, structured_scan
+    from spec_viterbi.utils.batching import pad_batch
+
+    em, pi = hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n)
+    batch, lengths = pad_batch(seqs, 1, min_t=2)
+    seqs_t, lengths = jnp.asarray(batch.T), jnp.asarray(lengths)
+    v0 = jnp.asarray(em.T)[:, seqs_t[0]] + jnp.asarray(pi)[:, None]
+    kw = dict(tile=tile, interpret=True)
+    arrays = kernel_arrays(sop, em, tile)
+    scores, _ = structured_scan(sop, arrays, v0, seqs_t[1:], lengths, **kw)
+    _, bp = structured_scan(sop, arrays, v0, seqs_t[1:], lengths, path=True, **kw)
+    last = jnp.argmin(scores, axis=0).astype(jnp.int32)
+    rev = backtrace(bp, last, interpret=True)
+    paths = jnp.concatenate([rev, last[None]], axis=0)
+    return np.asarray(scores).T, np.asarray(paths).T
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_kernel_state_tiles_bit_identical(tile):
+    """The state tile only changes how a program sweeps the state axis
+    (one tile at 128, eight at 16, the dense-column mins carried across
+    them); the scores and paths are the same bits at every tile."""
+    from spec_viterbi.models.oracle import viterbi_path_oracle
+
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     sop = StructuredOperator.from_hmm(hmm)
-    fd = FusedStructuredDecoder(
-        sop,
-        hmm.emission_matrix(pad_to=sop.n),
-        hmm.start_vector(pad_to=sop.n),
-        interpret=True,
-        unroll=unroll,
-    )
-    assert fd._fs_ok
-    rng = np.random.default_rng(11)
-    seqs = [
-        rng.integers(0, hmm.emit_num, size=15).astype(np.int32)
-        for _ in range(130)
-    ]
-    st, ln, masked = fd.prepare(seqs)
-    assert not masked
-    got = np.asarray(fd._jit_run(st, ln, masked=False, b_real=len(seqs)))
-    base = np.asarray(fd._jit_run(st, ln, masked=True, b_real=len(seqs)))
-    np.testing.assert_array_equal(got, base)
-    assert almost_equal_vec(got[17], viterbi_scores_oracle(hmm, seqs[17]))
+    rng = np.random.default_rng(tile)
+    seqs = [rng.integers(0, hmm.emit_num, size=t).astype(np.int32) for t in (12, 7, 12)]
+    scores, paths = _kernel_at(hmm, sop, seqs, tile)
+    for i, (w, s) in enumerate(zip(_xla_scores(hmm, seqs), seqs)):
+        np.testing.assert_array_equal(scores[i, : hmm.states_num], w)
+        assert np.array_equal(paths[i, : len(s)], viterbi_path_oracle(hmm, s)[1])
 
 
-def test_fused_multi_block_batch_unrolled():
-    """Batches over 128 lanes keep the unrolled kernel (round-1 dropped to
-    unroll=1 for b != 128; the seq BlockSpec indexes per lane block)."""
+@pytest.mark.parametrize("offsets", [(1,), (-1, 1), (0, 2), (-3,)])
+def test_kernel_banded_operators(offsets):
+    """Purely banded operators (several and negative diagonals, the
+    self-loop diagonal 0): scores bit-equal to the XLA scan, paths equal
+    to the oracle."""
+    from conftest import banded_hmm
+    from spec_viterbi.models.oracle import viterbi_path_oracle
+
+    hmm = banded_hmm(n=128, offsets=offsets, seed=sum(abs(d) for d in offsets))
+    sop = StructuredOperator.from_hmm(hmm)
+    assert not sop.row_idx and not sop.col_idx and sop.residual_nnz == 0
+    fd = _fused_for(hmm)
+    rng = np.random.default_rng(5)
+    seqs = [rng.integers(0, hmm.emit_num, size=t).astype(np.int32) for t in (9, 14)]
+    for g, w in zip(fd.decode_batch(seqs, bucketed=False), _xla_scores(hmm, seqs)):
+        np.testing.assert_array_equal(g, w)
+    for (scores, path), s in zip(fd.decode_path_batch(seqs), seqs):
+        assert np.array_equal(path, viterbi_path_oracle(hmm, s)[1])
+
+
+def test_kernel_scan_composes_over_chunks():
+    """The start carry is a resumable input: one call over T steps equals
+    two calls over a split of them, bit for bit (what streaming relies on)."""
+    import jax.numpy as jnp
+
+    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
+    fd = _fused_for(hmm)
+    rng = np.random.default_rng(9)
+    obs = jnp.asarray(rng.integers(0, hmm.emit_num, size=(20, 4)).astype(np.int32))
+    lengths = jnp.full((1, 4), 21, jnp.int32)
+    v0 = fd._start(obs[0])
+    whole, _ = fd.scan(v0, obs[1:], lengths)
+    half, _ = fd.scan(v0, obs[1:8], lengths)
+    rest, _ = fd.scan(half, obs[8:], lengths)
+    np.testing.assert_array_equal(np.asarray(whole), np.asarray(rest))
+
+
+def test_state_axis_pads_only_to_a_tile_multiple():
+    from spec_viterbi.ops.fused_pallas import tile_layout
+
+    assert tile_layout(2432, 256) == (256, 2560)  # not 4096
+    assert tile_layout(2432, 128) == (128, 2432)
+    assert tile_layout(128, 256) == (128, 128)  # small models: one tile
+    assert tile_layout(102, 32) == (32, 128)
+    assert tile_layout(3, 128) == (4, 4)
+    assert tile_layout(1, 128) == (1, 1)
+
+
+@pytest.mark.parametrize("tile", [8, 32, 64])
+def test_kernel_padded_state_axis_bit_identical(tile):
+    """An unpadded 102-state operator swept in tiles that do not divide
+    it: the +inf padding states change no score and no path."""
+    from spec_viterbi.models.oracle import viterbi_path_oracle
+
+    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
+    sop = StructuredOperator.from_hmm(hmm, pad_to=hmm.states_num)
+    assert sop.n % tile
+    rng = np.random.default_rng(tile)
+    seqs = [rng.integers(0, hmm.emit_num, size=t).astype(np.int32) for t in (15, 8)]
+    scores, paths = _kernel_at(hmm, sop, seqs, tile)
+    xla = ViterbiDecoder(hmm, pad=False, use_pallas=False).decode_batch(seqs, bucketed=False)
+    for i, (w, s) in enumerate(zip(xla, seqs)):
+        np.testing.assert_array_equal(scores[i], w)
+        assert np.array_equal(paths[i, : len(s)], viterbi_path_oracle(hmm, s)[1])
+
+
+def test_capability_check_keeps_the_cpu_on_the_xla_scan():
+    """Off a GPU the decoders never pick the kernel, nor interpret mode,
+    unless a caller asks with ``interpret=True``."""
+    from spec_viterbi.models.streaming_xla import XLAStreamDecoder
+    from spec_viterbi.ops.fused_pallas import gpu_kernel_available
+
+    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
+    assert not gpu_kernel_available()
+    dec = ViterbiDecoder(hmm)
+    assert dec.mode == "structured" and dec._fused is None
+    assert isinstance(dec.streaming(), XLAStreamDecoder)
+    asked = ViterbiDecoder(hmm, interpret=True)
+    assert asked._fused is not None and asked._fused.interpret
+    assert asked.streaming() is asked._fused
+    assert dec.streaming(interpret=True).interpret
+
+
+def test_fused_multi_group_ragged_batch():
+    """Many lanes with ragged lengths: every lane's mask freezes it at its
+    own end."""
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     fd = _fused_for(hmm)
     rng = np.random.default_rng(13)
-    # 150 ragged sequences -> 256 lanes (2 blocks), odd lengths hit the tail
     seqs = [
         rng.integers(0, hmm.emit_num, size=rng.integers(2, 23)).astype(np.int32)
-        for _ in range(150)
-    ]
-    got = fd.decode_batch(seqs)
-    for g, s in zip(got, seqs):
-        assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s)), len(s)
-
-
-def test_fused_unroll4_width_gate():
-    """b >= 256 lanes runs ONE wide lane block at unroll 4 (the
-    stall-filling grid, `_plan_for` / exp_base_laneblock.py); 128-lane
-    multiples below that keep the measured u2 tier and non-multiples
-    drop to (128, 1). Pins the wide-block u4 code path in CI with a
-    512-lane oracle check."""
-    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
-    fd = _fused_for(hmm)
-    assert fd._plan_for(512) == (512, 4)
-    assert fd._plan_for(256) == (256, 4)
-    assert fd._plan_for(128) == (128, 2)
-    assert fd._plan_for(130) == (128, 1)
-    rng = np.random.default_rng(17)
-    # 500 ragged sequences -> 512 lanes (4 blocks): u4 with a tail step
-    seqs = [
-        rng.integers(0, hmm.emit_num, size=rng.integers(2, 15)).astype(np.int32)
-        for _ in range(500)
+        for _ in range(30)
     ]
     got = fd.decode_batch(seqs, bucketed=False)
-    for g, s in zip(got[::37], seqs[::37]):
-        assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s)), len(s)
+    for g, w in zip(got, _xla_scores(hmm, seqs)):
+        np.testing.assert_array_equal(g, w)
 
 
-def test_path_kernel_wide_lane_block_bit_identical():
-    """The path/backtrace kernels route wide lane blocks at b >= 256
-    (`_path_lb` — the stall-filling grid). Paths must stay bit-identical
-    to the oracle across widths: run 256 lanes (one 256-wide block) and
-    assert backpointer paths and scores vs lb=128 AND the oracle."""
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
-
-    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
-    fd = _fused_for(hmm)
-    assert fd._path_lb(256) == 256
-    assert fd._path_lb(128) == 128
-    assert fd._path_lb(130) == 128
-    rng = np.random.default_rng(21)
-    seqs = [
-        rng.integers(0, hmm.emit_num, size=12).astype(np.int32)
-        for _ in range(256)
-    ]
-    st, ln, masked = fd.prepare(seqs)
-    v0 = fd.em_clamped[:, :].take(st[0], axis=1) + fd.pi[:, None]
-    obs = st[1:, None, :]
-    wide = fd._path_pallas(v0, obs, ln, masked)
-    narrow = fd._path_pallas(v0, obs, ln, masked, lane_block=128)
-    assert np.array_equal(np.asarray(wide[0]), np.asarray(narrow[0]))
-    assert np.array_equal(np.asarray(wide[1]), np.asarray(narrow[1]))
-    got = fd.decode_path_batch(seqs)
-    for (scores, path), s in zip(got[::61], seqs[::61]):
-        oscores, opath = viterbi_path_oracle(hmm, s)
-        assert almost_equal_vec(scores, oscores)
-        assert np.array_equal(path, opath)
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_scan_on_gpu(on_gpu):
+    """The kernel as compiled for the card: scores bit-equal to the XLA
+    scan and paths equal, at a corpus width."""
+    hmm = read_hmm(os.path.join(CHMM_DIR, "1200.chmm"))
+    sop = StructuredOperator.from_hmm(hmm)
+    fd = FusedStructuredDecoder(
+        sop, hmm.emission_matrix(pad_to=sop.n), hmm.start_vector(pad_to=sop.n)
+    )
+    rng = np.random.default_rng(1)
+    seqs = [rng.integers(0, hmm.emit_num, size=300).astype(np.int32) for _ in range(64)]
+    for g, w in zip(fd.decode_batch(seqs), _xla_scores(hmm, seqs)):
+        np.testing.assert_array_equal(g, w)
+    want = ViterbiDecoder(hmm, use_pallas=False).decode_path_batch(seqs[:8])
+    for (gs, gp), (ws, wp) in zip(fd.decode_path_batch(seqs[:8]), want):
+        np.testing.assert_array_equal(gs, ws)
+        np.testing.assert_array_equal(gp, wp)
 
 
 def test_fused_ragged_lengths_frozen_lanes():
@@ -349,8 +409,8 @@ def test_whole_batch_path_budget_refusal():
     import pytest
 
     from conftest import CHMM_DIR
-    from spec_viterbi_tpu.io import read_hmm
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
+    from spec_viterbi.io import read_hmm
+    from spec_viterbi.ops.structured import StructuredOperator
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     sop = StructuredOperator.from_hmm(hmm)
@@ -368,53 +428,3 @@ def test_whole_batch_path_budget_refusal():
             fd.decode_path_batch(seqs, bucketed=False)
     finally:
         fd.MAX_PATH_BYTES = old
-
-
-def test_em_split3_proof_and_exact_reconstruction():
-    """_split_em_cat3 must PROVE bit-exact any-order reconstruction for
-    corpus-shaped tables (incl. BIG padding entries), and the decoder must
-    select it for path flows (module docstring precision note)."""
-    from spec_viterbi_tpu.ops.fused_pallas import BIG, BIG_THRESHOLD, _split_em_cat3
-
-    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
-    fd = _fused_for(hmm)
-    assert fd._em3_ok and fd.em_exact3 is not None
-    assert fd.em_exact3.shape == (fd.n, 3 * fd.e_pad)
-
-    rng = np.random.default_rng(11)
-    table = rng.uniform(0.0, 60.0, size=(256, 32)).astype(np.float32)
-    table[:, 20:] = BIG
-    table[rng.uniform(size=table.shape) < 0.05] = BIG
-    em3, ok = _split_em_cat3(table)
-    assert ok
-    e = table.shape[1]
-    h, m, l = (em3[:, i * e : (i + 1) * e].astype(np.float32) for i in range(3))
-    rec = (h + m) + l
-    assert np.array_equal(rec, table)
-    assert np.all(rec[table >= BIG_THRESHOLD] >= BIG_THRESHOLD)
-
-
-def test_path_kernel_bf16x3_bit_identical_to_highest():
-    """The proved bf16 [hi|mid|lo] path selection must give carries, ties
-    and paths BIT-identical to the precision=HIGHEST dot it replaces."""
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
-
-    for name, td in (("100.chmm", CHMM_DIR), ("3_test_chmm.chmm", TEST_CHMMS)):
-        hmm = read_hmm(os.path.join(td, name))
-        fd3 = _fused_for(hmm)
-        fd1 = _fused_for(hmm)
-        fd1._em3_ok = False  # force the HIGHEST fallback on one instance
-        assert fd3._em3_ok
-        rng = np.random.default_rng(13)
-        seqs = [
-            rng.integers(0, hmm.emit_num, size=t).astype(np.int32)
-            for t in (5, 33, 64)
-        ]
-        got3 = fd3.decode_path_batch(seqs)
-        got1 = fd1.decode_path_batch(seqs)
-        for (s3, p3), (s1, p1), s in zip(got3, got1, seqs):
-            assert np.array_equal(s3, s1), (name, len(s))
-            assert np.array_equal(p3, p1), (name, len(s))
-            oscores, opath = viterbi_path_oracle(hmm, s)
-            assert np.array_equal(p3, opath), (name, len(s))
-            assert almost_equal_vec(s3, oscores), (name, len(s))

@@ -7,15 +7,15 @@ import numpy as np
 
 from conftest import ESS_DIR
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_emit_seq, read_hmm, write_chmm, write_ess
-from spec_viterbi_tpu.io.fasta import fasta_to_ess, fasta_to_sequences
-from spec_viterbi_tpu.io.generators import (
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_emit_seq, read_hmm, write_chmm, write_ess
+from spec_viterbi.io.fasta import fasta_to_ess, fasta_to_sequences
+from spec_viterbi.io.generators import (
     generate_random_hmm,
     generate_random_sequences,
 )
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.models.decoder import ViterbiDecoder
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.models.decoder import ViterbiDecoder
 
 
 def test_fasta_matches_reference_covid_ess():

@@ -1,4 +1,4 @@
-"""The Python lint gate (run_clang_tidy.sh analog, VERDICT r4 #6)."""
+"""The Python lint gate (run_clang_tidy.sh analog)."""
 
 import importlib.util
 import os

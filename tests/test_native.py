@@ -13,9 +13,9 @@ import pytest
 
 from conftest import CHMM_DIR, ESS_DIR, TEST_CHMMS, TEST_SEQS
 
-from spec_viterbi_tpu.io.chmm import _parse_tokens as parse_chmm_py
-from spec_viterbi_tpu.io.ess import _parse_tokens as parse_ess_py
-from spec_viterbi_tpu.native import loader
+from spec_viterbi.io.chmm import _parse_tokens as parse_chmm_py
+from spec_viterbi.io.ess import _parse_tokens as parse_ess_py
+from spec_viterbi.native import loader
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +94,7 @@ def test_native_rejects_hostile_allocation_header(native, tmp_path):
 
 def test_public_api_uses_native_when_available(native):
     """read_hmm goes through the native fast path transparently."""
-    from spec_viterbi_tpu.io import read_hmm
+    from spec_viterbi.io import read_hmm
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     assert hmm.states_num == 102

@@ -5,11 +5,11 @@ single-node, SURVEY.md §4; this suite is the extension's oracle)."""
 import numpy as np
 import pytest
 
-from spec_viterbi_tpu.io import read_hmm, read_emit_seq
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.models.decoder import DeviceHMM
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.parallel import (
+from spec_viterbi.io import read_hmm, read_emit_seq
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.models.decoder import DeviceHMM
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.parallel import (
     decode_batch_dp,
     decode_batch_dp_tp,
     decode_time_parallel,
@@ -17,7 +17,7 @@ from spec_viterbi_tpu.parallel import (
     make_mesh,
 )
 
-from conftest import TEST_CHMMS, TEST_SEQS
+from conftest import CHMM_DIR, TEST_CHMMS, TEST_SEQS
 import os
 
 
@@ -31,7 +31,7 @@ def small_model():
 @pytest.fixture(scope="module")
 def production_model():
     """Smallest production model: real sparsity, 102 states, 20 symbols."""
-    hmm = read_hmm("/root/reference/chmm_files/100.chmm")
+    hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     rng = np.random.default_rng(7)
     seqs = [rng.integers(0, hmm.emit_num, size=n).astype(np.int32) for n in (37, 64, 129)]
     return hmm, seqs
@@ -89,7 +89,7 @@ def test_time_parallel_fixture_unreachable_states(small_model):
 
 def test_empty_sequence_rejected(production_model):
     hmm, _ = production_model
-    from spec_viterbi_tpu.models.decoder import ViterbiDecoder
+    from spec_viterbi.models.decoder import ViterbiDecoder
 
     dec = ViterbiDecoder(hmm, mode="structured")
     with pytest.raises(ValueError, match="empty sequence"):
@@ -108,8 +108,8 @@ def test_dp_handles_ragged_lengths(production_model):
 
 
 def _fused_for(hmm):
-    from spec_viterbi_tpu.ops.fused_pallas import FusedStructuredDecoder
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
+    from spec_viterbi.ops.fused_pallas import FusedStructuredDecoder
+    from spec_viterbi.ops.structured import StructuredOperator
 
     sop = StructuredOperator.from_hmm(hmm)
     return FusedStructuredDecoder(
@@ -122,9 +122,9 @@ def _fused_for(hmm):
 
 @pytest.mark.parametrize("d", [2, 4])
 def test_fused_dp_scores_match_oracle(production_model, d):
-    """The fused kernel DP-sharded over the data axis (shard_map wrapper,
-    interpret-mode kernels on the CPU mesh) — VERDICT r1 #3."""
-    from spec_viterbi_tpu.parallel import decode_batch_dp_fused
+    """The kernel DP-sharded over the data axis (shard_map wrapper,
+    interpret-mode kernels on the CPU mesh)."""
+    from spec_viterbi.parallel import decode_batch_dp_fused
 
     hmm, _ = production_model
     fd = _fused_for(hmm)
@@ -134,17 +134,35 @@ def test_fused_dp_scores_match_oracle(production_model, d):
     got = decode_batch_dp_fused(fd, seqs, mesh)
     for g, s in zip(got, seqs):
         assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s)), len(s)
-    # uniform lengths compile the mask out per shard → the frame-shifted
-    # kernel runs under shard_map; oracle parity must hold there too
+    # uniform lengths: per-lane work only, so sharding cannot change a bit
     useqs = [rng.integers(0, hmm.emit_num, size=21).astype(np.int32) for _ in range(3)]
     got = decode_batch_dp_fused(fd, useqs, mesh)
-    for g, s in zip(got, useqs):
+    for g, w, s in zip(got, fd.decode_batch(useqs), useqs):
         assert almost_equal_vec(g, viterbi_scores_oracle(hmm, s))
+        np.testing.assert_array_equal(g, w)
+
+
+def test_fused_dp_output_shards_cover_the_mesh(production_model):
+    """Each device holds its own lane block of the DP output — the work
+    is spread, not gathered onto the first device."""
+    from spec_viterbi.parallel.sharded import _fused_dp_stage, make_fused_dp
+
+    hmm, _ = production_model
+    fd = _fused_for(hmm)
+    mesh = make_mesh(data=4)
+    rng = np.random.default_rng(3)
+    seqs = [rng.integers(0, hmm.emit_num, size=12).astype(np.int32) for _ in range(8)]
+    seqs_t, lengths = _fused_dp_stage(fd, seqs, mesh)
+    scores_fn, _ = make_fused_dp(fd, mesh)
+    out = scores_fn(seqs_t, lengths)
+    devices = {shard.device for shard in out.addressable_shards}
+    assert devices == set(mesh.devices.flat)
+    assert all(shard.data.shape[1] == out.shape[1] // 4 for shard in out.addressable_shards)
 
 
 def test_fused_dp_paths_match_oracle(production_model):
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
-    from spec_viterbi_tpu.parallel import decode_path_batch_dp_fused
+    from spec_viterbi.models.oracle import viterbi_path_oracle
+    from spec_viterbi.parallel import decode_path_batch_dp_fused
 
     hmm, _ = production_model
     fd = _fused_for(hmm)

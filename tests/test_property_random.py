@@ -8,10 +8,10 @@ alphabets, degrees, zero-probability patches, and ragged batches.
 import numpy as np
 import pytest
 
-from spec_viterbi_tpu.hmm import HMM, almost_equal_vec, to_modified_prob_np
-from spec_viterbi_tpu.models.decoder import ViterbiDecoder
-from spec_viterbi_tpu.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
-from spec_viterbi_tpu.models.specializer import SpecializedViterbi
+from spec_viterbi.hmm import HMM, almost_equal_vec, to_modified_prob_np
+from spec_viterbi.models.decoder import ViterbiDecoder
+from spec_viterbi.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
+from spec_viterbi.models.specializer import SpecializedViterbi
 
 
 def _random_hmm(rng, states, emit, deg, zero_frac=0.0):
@@ -112,11 +112,11 @@ def test_random_hmm_all_paths_agree(seed):
 def test_random_hmm_streaming_paths(seed):
     """Streaming scores AND checkpoint/rematerialize paths vs the oracle
     on random fused-eligible models (random chunk splits)."""
-    from spec_viterbi_tpu.ops.fused_pallas import (
+    from spec_viterbi.ops.fused_pallas import (
         FusedStructuredDecoder,
         fused_eligible,
     )
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
+    from spec_viterbi.ops.structured import StructuredOperator
 
     rng = np.random.default_rng(100 + seed)
     hmm = _random_structured_hmm(
@@ -151,9 +151,9 @@ def test_random_hmm_streaming_paths(seed):
 @pytest.mark.parametrize("seed", range(4))
 def test_random_hmm_streaming_universal(seed):
     """EVERY random model streams (scores + exact paths) and matches the
-    oracle through ``ViterbiDecoder.streaming()`` — fused-eligible models
-    via the Pallas engine (interpret off-TPU), irregular ones via the XLA
-    fallback; the accessor must never raise (VERDICT r2 #3: the streaming
+    oracle through ``ViterbiDecoder.streaming(interpret=True)`` —
+    fused-eligible models via the interpreted kernel engine, irregular
+    ones via the XLA engine; the accessor must never raise (the streaming
     extension must not be narrower than the parity API)."""
     rng = np.random.default_rng(300 + seed)
     states = int(rng.integers(2, 120))
@@ -162,7 +162,7 @@ def test_random_hmm_streaming_universal(seed):
     hmm = _random_hmm(rng, states, emit, deg, zero_frac=0.1 * (seed % 3))
 
     dec = ViterbiDecoder(hmm)  # auto mode: dense or structured
-    eng = dec.streaming()
+    eng = dec.streaming(interpret=True)
     t = int(rng.integers(2, 50))
     b = int(rng.integers(1, 4))
     block = rng.integers(0, emit, size=(t, b)).astype(np.int32)
@@ -180,6 +180,31 @@ def test_random_hmm_streaming_universal(seed):
         assert np.array_equal(paths[i], opath), (seed, i)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_random_hmm_kernel_bit_equal_to_xla_scan(seed):
+    """Random fused-eligible models: the interpreted kernel's batched
+    scores are bit-equal to the XLA structured scan and its paths equal
+    the XLA path scan's and the oracle's, ragged lanes included."""
+    rng = np.random.default_rng(900 + seed)
+    hmm = _random_structured_hmm(
+        rng, int(rng.integers(6, 60)), int(rng.integers(2, 12))
+    )
+    kernel = ViterbiDecoder(hmm, mode="structured", interpret=True)
+    xla = ViterbiDecoder(hmm, mode="structured", use_pallas=False)
+    assert kernel._fused is not None and xla._fused is None
+    seqs = [
+        rng.integers(0, hmm.emit_num, size=int(t)).astype(np.int32)
+        for t in rng.integers(1, 40, size=5)
+    ]
+    for g, w in zip(kernel.decode_batch(seqs), xla.decode_batch(seqs)):
+        np.testing.assert_array_equal(g, w)
+    got, want = kernel.decode_path_batch(seqs), xla.decode_path_batch(seqs)
+    for (gs, gp), (ws, wp), s in zip(got, want, seqs):
+        np.testing.assert_array_equal(gs, ws)
+        np.testing.assert_array_equal(gp, wp)
+        assert np.array_equal(gp, viterbi_path_oracle(hmm, s)[1]), seed
+
+
 def test_single_state_hmm():
     """Degenerate 1-state model decodes on every path."""
     rng = np.random.default_rng(0)
@@ -191,10 +216,9 @@ def test_single_state_hmm():
 
 
 def test_init_distributed_single_process(monkeypatch):
-    from spec_viterbi_tpu.parallel import init_distributed, process_info
+    from spec_viterbi.parallel import init_distributed, process_info
 
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
     assert init_distributed() is False
     info = process_info()
     assert info["process_count"] == 1 and info["global_devices"] == 8
@@ -206,8 +230,8 @@ def test_random_hmm_time_parallel_band_closure(seed):
     the decomposition finds) through BOTH time-parallel compose schedules:
     scores within the ±1.0 contract, paths exact — the band-closure
     generalization stressed beyond hand-built banded models."""
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
-    from spec_viterbi_tpu.ops.time_parallel import (
+    from spec_viterbi.ops.structured import StructuredOperator
+    from spec_viterbi.ops.time_parallel import (
         TimeParallelDecoder,
         time_parallel_supported,
     )

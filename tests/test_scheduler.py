@@ -1,5 +1,5 @@
 """Scheduler: the DP/TP/SP decision table as code (SURVEY.md §5 "a
-tunable scheduling decision"; VERDICT r3 next #5).
+tunable scheduling decision").
 
 Planning is pure (shape + operator structure), so the route table is
 unit-tested on synthetic workload shapes; execution is cross-checked
@@ -13,10 +13,10 @@ import pytest
 
 from conftest import CHMM_DIR
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_hmm
-from spec_viterbi_tpu.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
-from spec_viterbi_tpu.scheduler import (
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_hmm
+from spec_viterbi.models.oracle import viterbi_path_oracle, viterbi_scores_oracle
+from spec_viterbi.scheduler import (
     Route,
     Workload,
     decode_auto,
@@ -25,8 +25,8 @@ from spec_viterbi_tpu.scheduler import (
     plan_route,
     stream_engine,
 )
-from spec_viterbi_tpu.ops.structured import StructuredOperator
-from spec_viterbi_tpu.parallel.mesh import make_mesh
+from spec_viterbi.ops.structured import StructuredOperator
+from spec_viterbi.parallel.mesh import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +36,7 @@ def pfam():
 
 @pytest.fixture(scope="module")
 def banded():
-    from test_fused_tp import banded_hmm
+    from conftest import banded_hmm
 
     return banded_hmm(n=256, offsets=(1,), emit=4, seed=5)
 
@@ -55,8 +55,6 @@ def test_throughput_workload_routes_dp_or_batch(pfam):
 
 
 def test_single_long_sequence_defaults_to_batch(pfam):
-    # Round-4 hardware go/no-go was NEGATIVE (time-parallel 0.29–0.95× of
-    # the serial fused decode, bench_out/time_parallel_go_no_go.json), so
     # a long single sequence stays on the batched path by default…
     r = plan_route(pfam, _wl(n_seqs=1, max_len=3500))
     assert r.kind == "batch"
@@ -74,14 +72,16 @@ def test_single_long_sequence_defaults_to_batch(pfam):
 
 def test_capacity_bound_model_routes_tp(pfam, banded):
     mesh = make_mesh(state=4)
-    # force the capacity bound with a tiny budget: the coupled Pfam model
-    # must take per-step halo TP, the banded one the chunked schedule
+    # force the capacity bound with a tiny budget: coupled and banded
+    # operators alike take the per-step halo TP
     r = plan_route(pfam, _wl(hbm_bytes=1024), mesh)
     assert r.kind == "tp_halo"
     assert "exceed" in r.reason
     r = plan_route(banded, _wl(hbm_bytes=1024), mesh)
-    assert r.kind == "tp_chunked"
-    assert r.params == {"chunk": 16, "shards": 4, "capacity_bound": True}
+    assert r.kind == "tp_halo"
+    assert r.params == {"shards": 4, "capacity_bound": True}
+    # a device that reports no memory size is never capacity-bound
+    assert plan_route(pfam, _wl(), mesh).kind != "tp_halo"
 
 
 def test_latency_bound_needs_big_n(pfam):
@@ -91,18 +91,23 @@ def test_latency_bound_needs_big_n(pfam):
 
 
 def test_latency_bound_big_model_routes_tp():
-    from test_fused_tp import banded_hmm
+    from conftest import banded_hmm
 
     big = banded_hmm(n=10240, offsets=(1,), emit=4, seed=1)
     mesh = make_mesh(state=4)
     r = plan_route(big, _wl(n_seqs=8, optimize="latency"), mesh)
-    assert r.kind == "tp_chunked"
+    assert r.kind == "tp_halo"
     assert "latency-bound" in r.reason
 
 
 def test_streaming_routes_by_eligibility(pfam):
+    from spec_viterbi.ops.fused_pallas import fused_eligible, gpu_kernel_available
+
+    # the whole Pfam corpus is fused-eligible; the kernel engine is the
+    # route only where the kernel is compiled (a GPU)
+    assert fused_eligible(StructuredOperator.from_hmm(pfam))
     r = plan_route(pfam, _wl(streaming=True))
-    assert r.kind == "stream_fused"  # whole Pfam corpus is fused-eligible
+    assert r.kind == ("stream_fused" if gpu_kernel_available() else "stream_xla")
     eng = stream_engine(pfam, r)
     assert hasattr(eng, "stream_begin")
     with pytest.raises(ValueError, match="not a streaming route"):
@@ -112,17 +117,17 @@ def test_streaming_routes_by_eligibility(pfam):
 def test_streaming_fallback_engine():
     """A residual-heavy operator exceeds fused eligibility and must get
     the universal XLA engine."""
-    from spec_viterbi_tpu.io.generators import generate_random_hmm
+    from spec_viterbi.io.generators import generate_random_hmm
 
     hmm = generate_random_hmm(states_num=48, trans_per_state=24, emit_range=4, seed=9)
     sop = StructuredOperator.from_hmm(hmm)
-    from spec_viterbi_tpu.ops.fused_pallas import fused_eligible
+    from spec_viterbi.ops.fused_pallas import fused_eligible
 
     if fused_eligible(sop):
         pytest.skip("generator produced a fused-eligible operator")
     r = plan_route(hmm, _wl(streaming=True))
     assert r.kind == "stream_xla"
-    from spec_viterbi_tpu.models.streaming_xla import XLAStreamDecoder
+    from spec_viterbi.models.streaming_xla import XLAStreamDecoder
 
     assert isinstance(stream_engine(hmm, r), XLAStreamDecoder)
 
@@ -163,21 +168,50 @@ def test_execute_time_parallel_route(pfam):
     assert np.array_equal(p, op)
 
 
-def test_execute_dp_route(pfam):
+@pytest.mark.parametrize("interpret", [False, True])
+def test_execute_dp_route(pfam, interpret):
+    """The dp route: the XLA structured DP on the CPU, the kernel per
+    device when asked for in interpret mode — scores and paths."""
     mesh = make_mesh(data=2)
     rng = np.random.default_rng(2)
     seqs = [rng.integers(0, pfam.emit_num, size=30).astype(np.int32) for _ in range(4)]
     route = plan_route(pfam, Workload.from_seqs(seqs), mesh)
     assert route.kind == "dp"
-    got = execute_route(pfam, seqs, route, mesh)
+    got = execute_route(pfam, seqs, route, mesh, interpret=interpret)
     for g, s in zip(got, seqs):
         assert almost_equal_vec(g, viterbi_scores_oracle(pfam, s))
+    route_p = Route(route.kind, route.reason, {**route.params, "paths": True})
+    for (sc, p), s in zip(execute_route(pfam, seqs, route_p, mesh, interpret=interpret), seqs):
+        assert np.array_equal(p, viterbi_path_oracle(pfam, s)[1])
+
+
+def test_route_decoders_kept_per_model_content(pfam):
+    """A repeated route call reuses its decoder, and so its compiled
+    functions; an HMM whose content changed gets a new one, and the old
+    one is dropped."""
+    import dataclasses
+
+    from spec_viterbi.scheduler import _kept
+
+    hmm = dataclasses.replace(pfam)  # own instance, same content
+    built = []
+
+    def build():
+        built.append(object())
+        return built[-1]
+
+    first = _kept(hmm, "dp", build)
+    assert _kept(hmm, "dp", build) is first and len(built) == 1
+    assert _kept(hmm, "batch", build) is not first and len(built) == 2
+    hmm.emissions = hmm.emissions + 1.0
+    assert _kept(hmm, "dp", build) is not first and len(built) == 3
+    assert sorted(k[0] for k in hmm._route_decoders) == ["batch", "dp"]
 
 
 def test_execute_tp_routes(pfam, banded):
     mesh = make_mesh(state=4)
     rng = np.random.default_rng(3)
-    for hmm, kind in ((pfam, "tp_halo"), (banded, "tp_chunked")):
+    for hmm, kind in ((pfam, "tp_halo"), (banded, "tp_halo")):
         seqs = [
             rng.integers(0, hmm.emit_num, size=t).astype(np.int32)
             for t in (20, 33)
@@ -206,8 +240,7 @@ def test_capacity_bound_halo_paths_refused(pfam):
 
 
 def test_dropped_time_parallel_request_is_explained(pfam):
-    """ADVICE r4: an explicit prefer_time_parallel=True that fails a guard
-    must say so in the fallback route's reason instead of silently
+    """An explicit prefer_time_parallel=True that fails a guard must say so in the fallback route's reason instead of silently
     vanishing."""
     r = plan_route(pfam, _wl(n_seqs=3, max_len=3500, prefer_time_parallel=True))
     assert r.kind == "batch"
@@ -221,8 +254,8 @@ def test_dropped_time_parallel_request_is_explained(pfam):
 
 
 def test_decode_auto_forwards_workload_kw(pfam, capsys):
-    """ADVICE r4: the planner opt-ins (prefer_time_parallel et al.) must be
-    reachable from the one-stop decode_auto entry."""
+    """The planner opt-ins (prefer_time_parallel et al.) must be reachable
+    from the one-stop decode_auto entry."""
     rng = np.random.default_rng(7)
     seq = rng.integers(0, pfam.emit_num, size=600).astype(np.int32)
     got = decode_auto(pfam, [seq], prefer_time_parallel=True, verbose=True)

@@ -5,14 +5,14 @@ The reference's correctness oracle: every backend agrees with every other,
 spec agrees with non-spec, on production models × the ``emit_3_3500_20``
 dataset. Here the "backends" are the framework's execution paths:
 
-  non-spec:  dense XLA, structured XLA, NumPy oracle, streaming (chunked
-             fused kernel; default run only — interpret mode is too slow
-             for the full sweep)
+  non-spec:  dense XLA, structured XLA, NumPy oracle, the whole-sequence
+             kernel (Pallas interpreter), streaming on both engines,
+             time-parallel
   spec:      levels 1 and 2 (GraphBLAS runs L1+L2, GPU backends L1 —
              ``test_semantic_equality.cpp:45-56``)
 
-The default run covers a model subset with truncated sequences (CPU-time
-bounded); ``SVT_FULL_EQUALITY=1`` unlocks the reference's full sweep.
+The models are the seeded corpus's profile models; sequences are
+truncated to keep the CPU run (and the interpreted kernel) bounded.
 """
 
 import itertools
@@ -23,56 +23,16 @@ import pytest
 
 from conftest import CHMM_DIR, ESS_DIR
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_emit_seq, read_hmm
-from spec_viterbi_tpu.models.decoder import ViterbiDecoder
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.models.spec_structured import StructuredSpecializedViterbi
-from spec_viterbi_tpu.models.specializer import SpecializedViterbi
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_emit_seq, read_hmm
+from spec_viterbi.io.corpus import PROFILE_LENGTHS
+from spec_viterbi.models.decoder import ViterbiDecoder
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.models.spec_structured import StructuredSpecializedViterbi
+from spec_viterbi.models.specializer import SpecializedViterbi
 
-FULL = bool(os.environ.get("SVT_FULL_EQUALITY"))
-
-_ALL_MODELS = sorted(
-    os.path.basename(p)
-    for p in __import__("glob").glob(os.path.join(CHMM_DIR, "*.chmm"))
-)
-
-
-def _default_models() -> list[str]:
-    """Three fixed anchors + two ROTATING corpus models.
-
-    The full 24-model sweep takes ~74 min (gated behind
-    ``SVT_FULL_EQUALITY=1``); the rotation guarantees every corpus model
-    still passes through CI within ~2 weeks of daily runs, so a
-    mid-corpus regression (e.g. a decomposition edge at 1509/1705) cannot
-    ride indefinitely (VERDICT r2 weak #1). The rotation key defaults to
-    the calendar day; set ``SVT_ROTATION=<int>`` to pin it (reproduce a
-    specific day's selection when bisecting a rotation-only failure —
-    the failing run's models are in its pytest parametrize ids)."""
-    import datetime
-
-    anchors = ["100.chmm", "500.chmm", "1200.chmm"]
-    pool = [m for m in _ALL_MODELS if m not in anchors]
-    if not pool:
-        return anchors
-    key = os.environ.get("SVT_ROTATION")
-    day = int(key) if key else datetime.date.today().toordinal()
-    rotating = [pool[(2 * day + i) % len(pool)] for i in range(2)]
-    # record the effective key at collection time so a rotation-only
-    # failure is reproducible (SVT_ROTATION=<day> re-pins it) even when
-    # the rerun crosses a day boundary (ADVICE r3)
-    import sys
-
-    print(
-        f"[semantic-equality] rotation key={day} "
-        f"(SVT_ROTATION={'unset' if not key else key}) rotating={rotating}",
-        file=sys.stderr,
-    )
-    return anchors + sorted(set(rotating))
-
-
-MODELS = _ALL_MODELS if FULL else _default_models()
-SEQ_TRUNC = None if FULL else 160
+MODELS = [f"{length}.chmm" for length in PROFILE_LENGTHS]
+SEQ_TRUNC = 160
 
 
 _STREAM_DECODERS: dict[str, object] = {}
@@ -80,13 +40,11 @@ _STREAM_DECODERS: dict[str, object] = {}
 
 def _stream_decode(hmm, seq, width: int = 37):
     """Decode one sequence through stream_begin/feed/scores (1 lane)."""
-    import jax
-
-    from spec_viterbi_tpu.ops.fused_pallas import (
+    from spec_viterbi.ops.fused_pallas import (
         FusedStructuredDecoder,
         fused_eligible,
     )
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
+    from spec_viterbi.ops.structured import StructuredOperator
 
     fd = _STREAM_DECODERS.get(hmm.fingerprint())
     if fd is None:
@@ -96,7 +54,7 @@ def _stream_decode(hmm, seq, width: int = 37):
             sop,
             hmm.emission_matrix(pad_to=sop.n),
             hmm.start_vector(pad_to=sop.n),
-            interpret=jax.default_backend() != "tpu",
+            interpret=True,
         )
         _STREAM_DECODERS.clear()  # one cached decoder is enough
         _STREAM_DECODERS[hmm.fingerprint()] = fd
@@ -125,8 +83,8 @@ _AUX_DECODERS: dict[tuple, object] = {}
 
 def _xla_stream_decode(hmm, seq, width: int = 41):
     """Scores via the universal XLA streaming fallback engine (1 lane)."""
-    from spec_viterbi_tpu.models.streaming_xla import XLAStreamDecoder
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
+    from spec_viterbi.models.streaming_xla import XLAStreamDecoder
+    from spec_viterbi.ops.structured import StructuredOperator
 
     key = ("xla_stream", hmm.fingerprint())
     eng = _AUX_DECODERS.get(key)
@@ -149,9 +107,19 @@ def _xla_stream_decode(hmm, seq, width: int = 41):
     return eng.stream_scores(st)[0]
 
 
+def _kernel_decoder(hmm):
+    key = ("kernel", hmm.fingerprint())
+    dec = _AUX_DECODERS.get(key)
+    if dec is None:
+        dec = ViterbiDecoder(hmm, interpret=True)
+        assert dec._fused is not None
+        _AUX_DECODERS[key] = dec
+    return dec
+
+
 def _time_parallel_decode(hmm, seq, k: int = 8):
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
-    from spec_viterbi_tpu.ops.time_parallel import TimeParallelDecoder
+    from spec_viterbi.ops.structured import StructuredOperator
+    from spec_viterbi.ops.time_parallel import TimeParallelDecoder
 
     key = ("time_parallel", hmm.fingerprint(), k)
     tp = _AUX_DECODERS.get(key)
@@ -208,45 +176,32 @@ def test_all_paths_agree(model, sequences):
         results["spec_struct_L2_batched"] = spec_impls[
             "spec_struct_L2"
         ].run_spec_batch([seq])[0]
-        if not FULL:
-            # streaming paths (fused kernel in interpret mode off-TPU; too
-            # slow for the FULL sweep — hardware streaming is covered by
-            # tests/test_streaming.py and the TPU verify drive). Uneven
-            # chunk widths exercise the quantized masked feed.
-            results["streaming"] = _stream_decode(hmm, seq)
-            results["streaming_path"] = _stream_path_decode(hmm, seq)
-            # XLA fallback streaming engine (universal-streaming path)
-            results["streaming_xla"] = _xla_stream_decode(hmm, seq)
-            # time-parallel single-sequence path (lanes = time blocks)
-            results["time_parallel"] = _time_parallel_decode(hmm, seq)
-        elif model in ("100.chmm", "500.chmm", "1200.chmm"):
-            # the FULL sweep keeps streaming columns on the anchor models
-            # at FULL length (VERDICT r4 #7): the XLA engine is scan-based
-            # and cheap everywhere; the fused engine's rows run on real
-            # TPU (or under SVT_FULL_STREAMING=1 — interpret mode at
-            # T=3500 would add hours to the CPU run)
-            import jax
-
-            results["streaming_xla"] = _xla_stream_decode(hmm, seq)
-            if jax.default_backend() == "tpu" or os.environ.get(
-                "SVT_FULL_STREAMING"
-            ):
-                results["streaming"] = _stream_decode(hmm, seq)
-                results["streaming_path"] = _stream_path_decode(hmm, seq)
+        # the kernel (interpreted), streaming on both engines (uneven
+        # chunk widths exercise the quantized masked feed), and the
+        # time-parallel single-sequence path
+        results["kernel_batched"] = _kernel_decoder(hmm).decode_batch([seq])[0]
+        results["streaming"] = _stream_decode(hmm, seq)
+        results["streaming_path"] = _stream_path_decode(hmm, seq)
+        results["streaming_xla"] = _xla_stream_decode(hmm, seq)
+        results["time_parallel"] = _time_parallel_decode(hmm, seq)
+        # the kernel and the XLA scan perform the same float32 adds
+        np.testing.assert_array_equal(
+            results["kernel_batched"], results["structured"]
+        )
 
         for (na, va), (nb, vb) in itertools.combinations(results.items(), 2):
             assert almost_equal_vec(va, vb), (model, na, nb, len(seq))
 
 
 def test_ragged_stream_nonfused_model_in_matrix():
-    """Equality case for the universal-streaming gap (VERDICT r3 #6): a
+    """Equality case for universal streaming: a
     NON-fused-eligible model streamed with per-lane ragged valid counts —
     every lane shares one XLA-fallback stream, finishes at its own
     length, and must agree with the serial decoders and the oracle."""
-    from spec_viterbi_tpu.io.generators import generate_random_hmm
-    from spec_viterbi_tpu.models.streaming_xla import XLAStreamDecoder
-    from spec_viterbi_tpu.ops.fused_pallas import fused_eligible
-    from spec_viterbi_tpu.ops.structured import StructuredOperator
+    from spec_viterbi.io.generators import generate_random_hmm
+    from spec_viterbi.models.streaming_xla import XLAStreamDecoder
+    from spec_viterbi.ops.fused_pallas import fused_eligible
+    from spec_viterbi.ops.structured import StructuredOperator
 
     hmm = generate_random_hmm(
         states_num=48, trans_per_state=24, emit_range=6, seed=9

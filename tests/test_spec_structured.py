@@ -7,13 +7,13 @@ import pytest
 
 from conftest import CHMM_DIR, TEST_CHMMS
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_emit_seq, read_hmm
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.models.spec_structured import StructuredSpecializedViterbi
-from spec_viterbi_tpu.models.specializer import SpecializedViterbi
-from spec_viterbi_tpu.ops import structured_compose as sc
-from spec_viterbi_tpu.ops.structured import StructuredOperator
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_emit_seq, read_hmm
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.models.spec_structured import StructuredSpecializedViterbi
+from spec_viterbi.models.specializer import SpecializedViterbi
+from spec_viterbi.ops import structured_compose as sc
+from spec_viterbi.ops.structured import StructuredOperator
 
 
 def test_composition_algebra_matches_dense_products():
@@ -82,7 +82,7 @@ def test_batched_compose_matches_pairwise_algebra():
 
 
 def test_structured_spec_operator_cache_roundtrip(tmp_path):
-    from spec_viterbi_tpu.utils.cache import OperatorCache
+    from spec_viterbi.utils.cache import OperatorCache
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     cache = OperatorCache(cache_dir=str(tmp_path))

@@ -13,11 +13,11 @@ import pytest
 
 from conftest import CHMM_DIR, TEST_CHMMS
 
-from spec_viterbi_tpu.io import read_hmm
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.ops.fused_pallas import FusedStructuredDecoder
-from spec_viterbi_tpu.ops.structured import StructuredOperator
+from spec_viterbi.io import read_hmm
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.ops.fused_pallas import FusedStructuredDecoder
+from spec_viterbi.ops.structured import StructuredOperator
 
 
 def _fused_for(hmm):
@@ -78,7 +78,7 @@ def test_stream_peek_and_continue():
 @pytest.mark.parametrize("splits", [[59], [7, 13, 23, 17]])
 def test_stream_path_matches_one_shot_and_oracle(splits):
     """Checkpoint/rematerialize path streaming: exact paths, exact scores."""
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     fd = _fused_for(hmm)
@@ -120,7 +120,7 @@ def test_stream_path_single_symbol():
     """begin-only stream: path is just the argmin end state."""
     hmm = read_hmm(os.path.join(TEST_CHMMS, "3_test_chmm.chmm"))
     fd = _fused_for(hmm)
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     state = fd.stream_begin_path(np.array([0, 1], dtype=np.int32))
     scores, paths = fd.stream_path_finalize(state)
@@ -133,7 +133,7 @@ def test_stream_path_single_symbol():
 @pytest.mark.parametrize("d", [2, 4])
 def test_stream_dp_scores_match_single_chip(d):
     """DP-sharded streaming is bit-identical to the single-chip stream."""
-    from spec_viterbi_tpu.parallel import StreamDP, make_mesh
+    from spec_viterbi.parallel import StreamDP, make_mesh
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     fd = _fused_for(hmm)
@@ -156,8 +156,8 @@ def test_stream_dp_scores_match_single_chip(d):
 
 
 def test_stream_dp_paths_match_oracle():
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
-    from spec_viterbi_tpu.parallel import StreamDP, make_mesh
+    from spec_viterbi.models.oracle import viterbi_path_oracle
+    from spec_viterbi.parallel import StreamDP, make_mesh
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     fd = _fused_for(hmm)
@@ -177,8 +177,8 @@ def test_stream_dp_paths_match_oracle():
 
 
 def test_decoder_streaming_accessor():
-    """ViterbiDecoder.streaming() exposes the engine (interpret off-TPU)."""
-    from spec_viterbi_tpu.models.decoder import ViterbiDecoder
+    """ViterbiDecoder.streaming() exposes an engine on every backend."""
+    from spec_viterbi.models.decoder import ViterbiDecoder
 
     hmm = read_hmm(os.path.join(TEST_CHMMS, "3_test_chmm.chmm"))
     dec = ViterbiDecoder(hmm, mode="structured")
@@ -195,9 +195,9 @@ def test_decoder_streaming_accessor():
         )
 
     # streaming is universal: dense-mode decoders and use_pallas=False
-    # pins get the XLA fallback engine (never the Pallas kernel) and
-    # still produce oracle-correct scores
-    from spec_viterbi_tpu.models.streaming_xla import XLAStreamDecoder
+    # pins get the XLA engine (never the kernel) and still produce
+    # oracle-correct scores
+    from spec_viterbi.models.streaming_xla import XLAStreamDecoder
 
     for dec2 in (
         ViterbiDecoder(hmm, mode="dense"),
@@ -220,11 +220,11 @@ def test_xla_stream_engine_full_protocol(tmp_path):
     """The fallback engine honors the whole protocol on an operator the
     fused kernel REJECTS (heavy residual): scores, exact paths across
     chunk boundaries, peek, save/load, cross-engine load rejection."""
-    from spec_viterbi_tpu.models.decoder import ViterbiDecoder
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
-    from spec_viterbi_tpu.models.streaming_xla import XLAStreamDecoder
-    from spec_viterbi_tpu.io.generators import generate_random_hmm
-    from spec_viterbi_tpu.ops.fused_pallas import fused_eligible
+    from spec_viterbi.models.decoder import ViterbiDecoder
+    from spec_viterbi.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.streaming_xla import XLAStreamDecoder
+    from spec_viterbi.io.generators import generate_random_hmm
+    from spec_viterbi.ops.fused_pallas import fused_eligible
 
     # dense-ish random model: decomposition keeps a large residual
     hmm = generate_random_hmm(states_num=37, trans_per_state=9, emit_range=5,
@@ -256,8 +256,8 @@ def test_xla_stream_engine_full_protocol(tmp_path):
             viterbi_scores_oracle(hmm, block[:18, i]),
         ), i
 
-    # a fused-engine state must not load into the XLA engine (different
-    # carry encodings would corrupt silently)
+    # a kernel-engine state must not load into the XLA engine (their lane
+    # padding differs, so a cross-engine resume would misplace lanes)
     smooth = read_hmm(os.path.join(TEST_CHMMS, "3_test_chmm.chmm"))
     fd = _fused_for(smooth)
     stf = fd.stream_begin(np.array([0], dtype=np.int32))
@@ -268,9 +268,35 @@ def test_xla_stream_engine_full_protocol(tmp_path):
         eng2.stream_load(pf)
 
 
+@pytest.mark.parametrize("engine", ["kernel", "xla"])
+def test_stream_load_refuses_an_older_carry_format(tmp_path, monkeypatch, engine):
+    """States written under another carry encoding (STREAM_FORMAT) are
+    refused, never resumed: the format tag is part of the model key."""
+    from spec_viterbi.models.decoder import ViterbiDecoder
+    from spec_viterbi.ops import stream_api
+
+    hmm = read_hmm(os.path.join(TEST_CHMMS, "3_test_chmm.chmm"))
+    monkeypatch.setattr(stream_api, "STREAM_FORMAT", "carry-v1")
+    old = (
+        _fused_for(hmm) if engine == "kernel"
+        else ViterbiDecoder(hmm, use_pallas=False).streaming()
+    )
+    path = str(tmp_path / "old.npz")
+    old.stream_save(old.stream_begin(np.array([0, 1], np.int32)), path)
+    monkeypatch.undo()
+    new = (
+        _fused_for(hmm) if engine == "kernel"
+        else ViterbiDecoder(hmm, use_pallas=False).streaming()
+    )
+    with pytest.raises(ValueError, match="different model"):
+        new.stream_load(path)
+    new.stream_save(new.stream_begin(np.array([0, 1], np.int32)), path)
+    assert new.stream_load(path).b_real == 2
+
+
 def test_stream_save_load_roundtrip(tmp_path):
     """A persisted stream resumes bit-identically (scores AND paths)."""
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     hmm = read_hmm(os.path.join(TEST_CHMMS, "3_test_chmm.chmm"))
     fd = _fused_for(hmm)
@@ -312,7 +338,7 @@ def test_stream_save_load_roundtrip(tmp_path):
 def test_stream_load_rejects_structurally_different_model(tmp_path):
     """Two models with IDENTICAL value bytes but different diagonal
     offsets must not cross-load (the fingerprint hashes structure too)."""
-    from spec_viterbi_tpu.hmm import HMM, to_modified_prob_np
+    from spec_viterbi.hmm import HMM, to_modified_prob_np
 
     def ring(step):
         n = 8
@@ -350,13 +376,13 @@ def test_stream_validation():
         fd.stream_begin(np.array([], dtype=np.int32))
 
 
-# ---- per-lane ragged streaming (VERDICT r3 #6) ------------------------
+# ---- per-lane ragged streaming ------------------------------------------
 
 
 def _engines(hmm):
     """Both stream engines for one model: fused Pallas (interpret) and
     the universal XLA fallback — the protocol-parity pair."""
-    from spec_viterbi_tpu.models.streaming_xla import XLAStreamDecoder
+    from spec_viterbi.models.streaming_xla import XLAStreamDecoder
 
     sop = StructuredOperator.from_hmm(hmm)
     em = hmm.emission_matrix(pad_to=sop.n)
@@ -408,7 +434,7 @@ def test_ragged_lane_stream_scores(engine, width):
 def test_ragged_lane_stream_paths(engine):
     """Ragged path streaming: sliced to each lane's true length, paths
     must match the oracle exactly (frozen steps are identity pointers)."""
-    from spec_viterbi_tpu.models.oracle import viterbi_path_oracle
+    from spec_viterbi.models.oracle import viterbi_path_oracle
 
     hmm = read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
     eng = _engines(hmm)[engine]

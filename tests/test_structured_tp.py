@@ -1,14 +1,18 @@
 """State-sharded structured decode (halo-exchange TP) vs the oracle."""
 
+import os
+
 import numpy as np
 import pytest
 
-from spec_viterbi_tpu.hmm import almost_equal_vec
-from spec_viterbi_tpu.io import read_hmm
-from spec_viterbi_tpu.models.oracle import viterbi_scores_oracle
-from spec_viterbi_tpu.ops.structured import StructuredOperator
-from spec_viterbi_tpu.parallel import make_mesh
-from spec_viterbi_tpu.parallel.structured_tp import (
+from conftest import CHMM_DIR
+
+from spec_viterbi.hmm import almost_equal_vec
+from spec_viterbi.io import read_hmm
+from spec_viterbi.models.oracle import viterbi_scores_oracle
+from spec_viterbi.ops.structured import StructuredOperator
+from spec_viterbi.parallel import make_mesh
+from spec_viterbi.parallel.structured_tp import (
     decode_batch_structured_tp,
     structured_tp_supported,
 )
@@ -16,7 +20,7 @@ from spec_viterbi_tpu.parallel.structured_tp import (
 
 @pytest.fixture(scope="module")
 def model():
-    return read_hmm("/root/reference/chmm_files/100.chmm")
+    return read_hmm(os.path.join(CHMM_DIR, "100.chmm"))
 
 
 @pytest.mark.parametrize("shards", [2, 4, 8])
@@ -32,7 +36,7 @@ def test_structured_tp_matches_oracle(model, shards):
 
 
 def test_structured_tp_larger_model():
-    hmm = read_hmm("/root/reference/chmm_files/500.chmm")
+    hmm = read_hmm(os.path.join(CHMM_DIR, "500.chmm"))
     mesh = make_mesh(state=8)
     rng = np.random.default_rng(5)
     seqs = [rng.integers(0, hmm.emit_num, size=64).astype(np.int32)]
@@ -42,7 +46,7 @@ def test_structured_tp_larger_model():
 
 def test_structured_tp_self_loop_diagonal():
     """d == 0 (self-loop) diagonals need no halo and must be supported."""
-    from spec_viterbi_tpu.hmm import HMM, to_modified_prob_np
+    from spec_viterbi.hmm import HMM, to_modified_prob_np
 
     rng = np.random.default_rng(17)
     states = 48
@@ -72,7 +76,7 @@ def test_structured_tp_self_loop_diagonal():
 
 @pytest.mark.parametrize("shards", [2, 8])
 def test_structured_dp_matches_oracle(model, shards):
-    from spec_viterbi_tpu.parallel import decode_batch_structured_dp
+    from spec_viterbi.parallel import decode_batch_structured_dp
 
     mesh = make_mesh(data=shards)
     rng = np.random.default_rng(41)

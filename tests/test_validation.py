@@ -12,11 +12,11 @@ import pytest
 
 from conftest import CHMM_DIR
 
-from spec_viterbi_tpu.hmm import validate_obs_seq
-from spec_viterbi_tpu.io import read_hmm
-from spec_viterbi_tpu.models.decoder import ViterbiDecoder
-from spec_viterbi_tpu.models.spec_structured import StructuredSpecializedViterbi
-from spec_viterbi_tpu.models.specializer import SpecializedViterbi
+from spec_viterbi.hmm import validate_obs_seq
+from spec_viterbi.io import read_hmm
+from spec_viterbi.models.decoder import ViterbiDecoder
+from spec_viterbi.models.spec_structured import StructuredSpecializedViterbi
+from spec_viterbi.models.specializer import SpecializedViterbi
 
 
 @pytest.fixture(scope="module")
@@ -74,13 +74,12 @@ def test_specializers_reject_bad_symbols(hmm):
 
 
 def test_dense_level2_big_model_warns_footgun():
-    """VERDICT r4 #5: instantiating the dense level-L specializer where
+    """Instantiating the dense level-L specializer where
     its batched decode is predicted >=10x slower than the structured
-    specializer must emit a documented warning naming the alternative
-    (the round-4 .dat measured 9.7 s vs 30 ms at 902 states). A
+    specializer must emit a documented warning naming the alternative. A
     small-alphabet 160-state model crosses the threshold (256 padded /
     14 slots ~ 18x) while keeping the tuple build cheap for CI."""
-    from spec_viterbi_tpu.io.generators import generate_random_hmm
+    from spec_viterbi.io.generators import generate_random_hmm
 
     big = generate_random_hmm(
         states_num=160, trans_per_state=2, emit_range=2, seed=3
